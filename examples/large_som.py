@@ -4,11 +4,12 @@ projection of the trained codebook.
 
 The reference tops out at 12x8 maps trained one sample at a time
 (som_rout.c:556-671); this drives the production path instead — the
-minibatch SOMTrainer (batch-SOM "mean" update: stable at any batch size) on TPU
-(models/fast.py, ops/pallas_som.py), falling back to the XLA step on CPU.
+minibatch SOMTrainer (batch-SOM "mean" update: stable at any batch size),
+whose winner search runs the Triton kernel on a GPU and XLA elsewhere
+(models/fast.py, ops/dispatch.py).
 
 Run:
-    python examples/large_som.py                      # full size (TPU)
+    python examples/large_som.py                      # full size (GPU)
     python examples/large_som.py --n 5000 --map 32    # small smoke run
 
 Prints a JSON summary: qerror after each training phase (the curve must

@@ -5,8 +5,8 @@ The reference handles files bigger than RAM with LOADMODE_BUFFER
 (datafile.c:237-344): refill a linked-list buffer inside next_entry,
 rewind per lap.  Here the same contract is data.streaming.StreamingReader
 (background parse/prefetch thread, native C++ line parser) feeding
-SOMTrainer, which prefetches each chunk to the device one step ahead of
-compute and runs the fused Pallas training step on TPU.
+SOMTrainer, which ships chunks to the device in superblocks ahead of
+compute and runs the minibatch training step on the device.
 
 Run:
     python examples/streaming_som.py                     # 1M x 64, 128x128 map

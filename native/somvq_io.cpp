@@ -2,7 +2,7 @@
 //
 // The reference package's data layer is ANSI C (datafile.c: line parser
 // load_entry :552-748, writer write_entry :420-447); this is the
-// TPU-framework's native equivalent: a single-pass parser that turns the
+// framework's native equivalent: a single-pass parser that turns the
 // text data/codebook format into dense arrays (the framework's Dataset
 // layout) and a writer that formats them back, both exposed through a
 // plain C ABI consumed via ctypes (no pybind11 in the image).
@@ -189,7 +189,7 @@ static int default_threads() {
 // in place during tokenization).  Files past ~4 MB parse the data region
 // with a thread per slab (slabs split at line boundaries, merged in file
 // order — the replacement for the reference's single-threaded
-// read_entries loop, datafile.c:237-344, at TPU-training data volumes).
+// read_entries loop, datafile.c:237-344, at device-training data volumes).
 int svq_parse_buffer(char* buf, int64_t len, const char* mask_str,
                      int skip_empty, svq_data* out) {
   svq_init(out);

@@ -1,4 +1,4 @@
-"""som_lvq_pak_tpu — a TPU-native SOM/LVQ vector-quantization framework.
+"""som_lvq_pak_tpu — a SOM/LVQ vector-quantization framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the classic
 Helsinki LVQ_PAK 3.1 / SOM_PAK 3.1 toolbox (reference: /root/reference).
@@ -8,7 +8,8 @@ matmuls fused with argmin and scatter updates; the host-side toolbox
 
 Layers (see SURVEY.md for the reference layer map):
   data/      text data/codebook format, label interning, datasets as arrays
-  ops/       distance + top-k + neighborhood kernels (XLA parity + Pallas fast)
+  ops/       distance + top-k + neighborhood ops (exact parity, XLA, and the
+             Pallas-Triton winner kernel for the GPU)
   models/    SOM and LVQ trainers, initializers, evaluators
   parallel/  device-mesh sharding: codebook-sharded winner search
   viz/       sammon / umat / planes EPS emitters

@@ -1,11 +1,12 @@
 """ctypes binding to the native C++ data-file engine (native/somvq_io.cpp).
 
 The native library is optional: `available()` reports whether it could be
-loaded (building it on demand with the in-tree Makefile when a compiler
-is present), and read/write fall back to the pure-Python implementation
-in data.io when it is not.
+loaded, and read/write fall back to the pure-Python implementation in
+data.io when it is not.  The library is never committed: the first load
+in a process runs the in-tree Makefile, which rebuilds it only when the
+source is newer.
 
-The reference's data layer is C (datafile.c); this is its TPU-framework
+The reference's data layer is C (datafile.c); this is its framework
 equivalent for the host-side hot path — parsing multi-gigabyte training
 files into dense arrays at memcpy-like speed instead of Python-loop
 speed."""
@@ -71,7 +72,7 @@ def _load():
     if _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and not _build():
+    if not _build():
         return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)

@@ -9,7 +9,7 @@ datafile.c:754-840).
 
 Here the same contract is a chunk iterator over Dataset slices with a
 background prefetch thread, so host parsing overlaps device compute —
-the TPU analogue of the reference's interleaved read-train loop.  Chunks
+the device analogue of the reference's interleaved read-train loop.  Chunks
 parse through the native C++ engine when available."""
 
 from __future__ import annotations

@@ -30,9 +30,9 @@ def _winner_labels(data: Dataset, codes: Dataset, parity: bool = True) -> np.nda
     else:
         import jax.numpy as jnp
 
-        from ..ops.distance import find_winners
+        from ..ops.dispatch import find_bmu
 
-        idx, _ = find_winners(
+        idx, _ = find_bmu(
             jnp.asarray(data.points),
             jnp.asarray(codes.points),
             None if data.mask is None else jnp.asarray(data.mask),

@@ -6,7 +6,7 @@ stats :280-492,929-1004), eveninit.c:46-158, balance.c:44-226.
 
 Like the SOM module, trainers offer mode='parity' (host float32, bit-exact
 vs the C package — anchors the 90.11 % lvqexample golden) and mode='fast'
-(jitted lax.scan; winner search on the MXU).  The kNN-based initializers
+(jitted lax.scan; winner search as one matmul).  The kNN-based initializers
 are computed with batched all-pairs distance evaluation instead of the
 reference's O(N^2 * dim) scalar rescans — same results, matmul speed.
 """
@@ -622,7 +622,7 @@ def lvq3_train(codes, data, rlen, alpha, winlen, epsilon,
 
 
 # ---------------------------------------------------------------------------
-# Trainers — fast path (jitted scan, MXU winner search)
+# Trainers — fast path (jitted scan, matmul winner search)
 # ---------------------------------------------------------------------------
 
 def _lvq1_fast(codes: Dataset, data: Dataset, order, talpha) -> Dataset:

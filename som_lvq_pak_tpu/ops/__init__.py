@@ -1,10 +1,5 @@
+from .dispatch import find_bmu, find_top2, som_accumulate, som_update
 from .distance import chunked_topk, find_winners, sq_distances, topk_winners
-from .pallas_distance import dist_argmin, dist_top2, dist_topk
-from .pallas_som import (
-    som_fused_train_step,
-    som_neighborhood_update_idx,
-    som_vmem_train_steps,
-)
 from .neighborhood import grid_distance_matrix, neighborhood_weights
 
 __all__ = [
@@ -12,12 +7,10 @@ __all__ = [
     "find_winners",
     "topk_winners",
     "chunked_topk",
-    "dist_argmin",
-    "dist_top2",
-    "dist_topk",
-    "som_neighborhood_update_idx",
-    "som_fused_train_step",
-    "som_vmem_train_steps",
+    "find_bmu",
+    "find_top2",
+    "som_accumulate",
+    "som_update",
     "grid_distance_matrix",
     "neighborhood_weights",
 ]

@@ -1,7 +1,7 @@
 """Batched distance + winner search — the framework's hot kernel (XLA path).
 
 This replaces the reference's per-sample scalar scans (find_winner_euc,
-lvq_pak.c:41-94; find_winner_knn :152-221) with the MXU-friendly form
+lvq_pak.c:41-94; find_winner_knn :152-221) with the matmul form
 
     D[b, n] = ||x_b||^2 - 2 x_b . m_n + ||m_n||^2_masked(b)
 
@@ -11,9 +11,10 @@ components (mask=1) are zeroed in x before the matmul and the matching
 — exactly the reference's "skip masked components" semantics
 (lvq_pak.c:63-72) at matmul speed (SURVEY.md §7 hard part 6).
 
-A fused Pallas kernel for large codebooks (argmin in the matmul epilogue,
-D never materialized in HBM) lives in ops.pallas_distance; this module is
-the portable XLA formulation and the reference oracle for it.
+A fused Triton kernel (argmin in the matmul epilogue, the distance block
+never written to device memory) lives in ops.triton_winner; this module
+is the portable XLA formulation and the reference oracle for it
+(ops.dispatch chooses between them).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def sq_distances(
 
     precision defaults to 'highest' (true f32 matmul): the expanded form
     ||x||^2 - 2x.m + ||m||^2 cancels catastrophically for near-winners if
-    the dot product is computed in bf16 on the MXU.  Pass None/'default'
-    explicitly to trade accuracy for throughput.
+    the dot product is computed in reduced precision (bf16 or TF32).
+    Pass None/'default' explicitly to trade accuracy for throughput.
     """
     if mask is not None:
         keep = 1.0 - mask.astype(x.dtype)
@@ -109,8 +110,7 @@ def topk_winners(
     return idx, -negd
 
 
-@partial(jax.jit, static_argnames=("k", "chunk", "reference_ties", "precision",
-                                   "use_pallas"))
+@partial(jax.jit, static_argnames=("k", "chunk", "reference_ties", "precision"))
 def chunked_topk(
     x: jnp.ndarray,
     codes: jnp.ndarray,
@@ -119,7 +119,6 @@ def chunked_topk(
     chunk: int = 4096,
     reference_ties: bool = True,
     precision="highest",
-    use_pallas: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """k-NN over a large query set without materializing the full (B, N)
     distance matrix: queries stream through in `chunk`-row tiles, each
@@ -129,26 +128,7 @@ def chunked_topk(
     reference recomputes per pick (eveninit/elimin/knntest/setlabel,
     O(N^2 dim) scalar loops — eveninit.c:46-158, lvq_rout.c:38-80);
     results match topk_winners exactly, including the reference
-    (distance asc, index desc) tie order.
-
-    use_pallas=True routes each tile through the fused Pallas
-    dist_topk kernel (k <= 16, no (chunk, N) block even on-chip; native
-    MXU precision, lowest-index ties) — the throughput path for huge
-    codebooks; requires reference_ties=False and mask=None."""
-    if use_pallas:
-        if reference_ties or mask is not None:
-            raise ValueError("chunked_topk(use_pallas=True) supports only "
-                             "reference_ties=False, mask=None")
-        from .pallas_distance import dist_topk
-
-        B = x.shape[0]
-        outs_v, outs_i = [], []
-        for s in range(0, B, chunk):
-            v, i = dist_topk(x[s:s + chunk], codes, k)
-            outs_v.append(v)
-            outs_i.append(i)
-        return (jnp.concatenate(outs_i) if len(outs_i) > 1 else outs_i[0],
-                jnp.concatenate(outs_v) if len(outs_v) > 1 else outs_v[0])
+    (distance asc, index desc) tie order."""
     B = x.shape[0]
     nchunks = -(-B // chunk)
     Bp = nchunks * chunk

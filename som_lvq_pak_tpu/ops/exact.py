@@ -2,8 +2,8 @@
 
 These back the *parity* training/eval mode, which reproduces the C
 package bit-for-bit at equal seeds and schedules (the acceptance targets
-in BASELINE.md).  The production TPU path lives in ops.distance /
-ops.pallas_distance; parity mode exists to prove numerical fidelity and
+in BASELINE.md).  The production device path lives in ops.dispatch /
+ops.distance / ops.triton_winner; parity mode exists to prove numerical fidelity and
 to anchor the golden tests, exactly as SURVEY.md §7 prescribes ("parity
 mode runs B=1", "reproduce LCG exactly on host").
 

@@ -7,7 +7,6 @@ from .sharded import (
     make_dim_sharded_winner,
     make_sharded_lvq_train_step,
     make_sharded_olvq1_train_step,
-    make_sharded_fused_som_train_step,
     make_sharded_som_train_step,
     sharded_olvq1_step,
     sharded_som_step,
@@ -22,7 +21,6 @@ __all__ = [
     "sharded_winner_search",
     "sharded_olvq1_step",
     "dim_sharded_winner_search",
-    "make_sharded_fused_som_train_step",
     "make_sharded_som_train_step",
     "make_sharded_lvq_train_step",
     "make_sharded_olvq1_train_step",

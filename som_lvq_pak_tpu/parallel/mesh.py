@@ -8,12 +8,12 @@ The framework's two scaling axes (SURVEY.md §2.6):
           (the reference's linear scan had no analogue — new design).
 
 The reference package is single-threaded C with no distribution at all;
-this module is new TPU-first design, not a port.
+this module is new design, not a port.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import jax
 import numpy as np
@@ -28,10 +28,10 @@ def make_mesh(
 ) -> Mesh:
     """Build a 2-D (data, model) mesh.
 
-    With only n_devices given, factor it as (small data axis, wide model
-    axis): the codebook shards want maximal ICI bandwidth for the winner
-    gather, while data parallelism only needs a psum of update
-    accumulators per step.
+    With only n_devices given, every device goes on the model axis: a
+    model shard's only collective is the (B, S) gather of winner
+    candidates, while each data shard adds a psum of its (rows, D)
+    update accumulators — a codebook's worth of bytes per step.
     """
     if devices is None:
         devices = jax.devices()
@@ -39,7 +39,7 @@ def make_mesh(
         n_devices = len(devices)
     devices = list(devices)[:n_devices]
     if data is None and model is None:
-        data, model = _factor(n_devices)
+        data, model = 1, n_devices
     elif data is None:
         data = n_devices // model
     elif model is None:
@@ -56,12 +56,11 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ) -> None:
     """Multi-host bring-up: wraps jax.distributed.initialize (no-op when
-    already initialized or running single-process).  On TPU pods the
-    arguments are discovered from the environment; pass them explicitly
-    on other platforms.  After this, jax.devices() spans all hosts and
-    make_mesh() lays the (data, model) axes over the global device set —
-    shardings are laid out so the model-axis winner gather rides ICI
-    within a slice while host data loading distributes over DCN."""
+    already initialized or running single-process).  Pass the
+    coordinator address, process count and id explicitly: nothing in a
+    plain GPU cluster announces them.  After this, jax.devices() spans
+    all hosts and make_mesh() lays the (data, model) axes over the global
+    device set."""
     import jax
 
     try:
@@ -92,14 +91,3 @@ def class_blocked_order(labels) -> "np.ndarray":
     labels = np.asarray(labels)
     return np.argsort(labels, kind="stable")
 
-
-def _factor(n: int) -> Tuple[int, int]:
-    """(data, model) with model the larger power-of-2-ish factor."""
-    data = 1
-    model = n
-    # prefer a 2-way or 4-way data axis when it divides evenly
-    for d in (4, 2):
-        if n % d == 0 and n // d >= d:
-            data, model = d, n // d
-            break
-    return data, model

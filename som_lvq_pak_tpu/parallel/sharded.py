@@ -3,20 +3,20 @@
 Design (SURVEY.md §2.6, §7 layer 4 — all new; the reference has no
 parallelism):
 
-* codebook rows sharded on the `model` axis; each chip computes a fused
-  dist+argmin over its shard (ops.pallas_distance) and the global winner
-  is resolved with an all_gather of (local_min, global_index) candidate
-  pairs over the model axis — S candidates per sample, S = model-axis
-  size, so the collective moves only O(B*S) scalars, riding ICI.
-  Tie-break: lowest global index among equal distances (the C scan's
-  first-index rule, lvq_pak.c:79).
+* codebook rows sharded on the `model` axis; each device runs the
+  selected winner op (ops.dispatch.find_bmu) over its shard and the
+  global winner is resolved with an all_gather of (local_min,
+  global_index) candidate pairs over the model axis — S candidates per
+  sample, S = model-axis size, so the collective moves only O(B*S)
+  scalars.  Tie-break: lowest global index among equal distances (the C
+  scan's first-index rule, lvq_pak.c:79).
 * the batch is sharded on the `data` axis; each data shard computes its
-  local W^T X / W^T 1 update accumulators, combined with a psum over
-  `data` — the framework's only other collective.
-* each model shard then updates its own codebook rows locally: the
-  neighborhood weight columns for local rows are computed closed-form
-  from unit coordinates, so no (noc, noc) matrix and no cross-shard
-  traffic for the update.
+  local W^T X / W^T 1 update accumulators for its own codebook rows
+  (ops.dispatch.som_accumulate, with the shard's global unit offset),
+  combined with a psum over `data` — the framework's only other
+  collective.
+* each model shard then blends its own codebook rows locally: no
+  (noc, noc) matrix and no cross-shard traffic for the update.
 """
 
 from __future__ import annotations
@@ -28,27 +28,17 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-
-def _local_winner(xb, codes_local, use_pallas, mask=None):
-    if use_pallas:
-        from ..ops.pallas_distance import dist_argmin
-
-        return dist_argmin(xb, codes_local, mask=mask)
-    from ..ops.distance import find_winners
-
-    idx, val = find_winners(xb, codes_local, mask)
-    return val, idx
+from ..ops import dispatch
 
 
-def sharded_winner_search(xb, codes_local, n_local: int, use_pallas: bool = False,
-                          mask=None):
+def sharded_winner_search(xb, codes_local, n_local: int, mask=None):
     """Inside shard_map: global (val, index) winners for the local batch
     shard against the model-sharded codebook.
 
     Returns (val (Bl,), global_idx (Bl,)). Must be called under a mesh
     with axes ('data', 'model').  `mask` (Bl, D) nonzero = component
     masked off (lvq_pak.c:63-72)."""
-    val_l, idx_l = _local_winner(xb, codes_local, use_pallas, mask)
+    idx_l, val_l = dispatch.find_bmu(xb, codes_local, mask)
     shard = jax.lax.axis_index("model")
     gidx_l = idx_l.astype(jnp.int32) + shard.astype(jnp.int32) * n_local
     vals = jax.lax.all_gather(val_l, "model")  # (S, Bl)
@@ -60,8 +50,8 @@ def sharded_winner_search(xb, codes_local, n_local: int, use_pallas: bool = Fals
 
 
 def sharded_som_step(
-    codes_local, xb_local, coords_local, coords_full, alpha, radius,
-    gaussian: bool, use_pallas: bool = False,
+    codes_local, xb_local, alpha, radius,
+    gaussian: bool, xdim: int, hexa: bool,
     mask_local=None, weights_local=None, fixed_local=None,
     overlap_chunks: int = 1,
 ):
@@ -69,8 +59,6 @@ def sharded_som_step(
 
     codes_local: (noc/S, D) on the model axis
     xb_local:    (B/Dd, D) on the data axis
-    coords_local:(noc/S, 2) unit coords of the local codebook rows
-    coords_full: (noc, 2) replicated unit coords (for BMU lookup)
     mask_local / weights_local / fixed_local: optional per-sample shards
     on the data axis — mask (Bl, D) nonzero = comp masked, weights (Bl,)
     scale alpha as 1-(1-a)^w, fixed (Bl,) int32 >= 0 bypasses winner
@@ -79,31 +67,23 @@ def sharded_som_step(
     n_local = codes_local.shape[0]
     if mask_local is not None:
         keep = 1.0 - mask_local.astype(jnp.float32)
-        xb_use = xb_local * keep
-        _, bmu = sharded_winner_search(xb_use, codes_local, n_local, use_pallas,
+        _, bmu = sharded_winner_search(xb_local * keep, codes_local, n_local,
                                        mask=mask_local)
+    elif overlap_chunks > 1:
+        # collective/compute pipelining: split the batch so chunk k's
+        # winner all_gather can run while chunk k+1's distance search
+        # runs.  Exactly the same math as the unchunked search (winners
+        # are per-sample independent) — the split only gives XLA's
+        # latency-hiding scheduler the freedom to overlap.
+        Bl = xb_local.shape[0]
+        k = max(1, min(overlap_chunks, Bl))
+        csize = -(-Bl // k)
+        parts = [sharded_winner_search(xb_local[s:s + csize], codes_local,
+                                       n_local)[1]
+                 for s in range(0, Bl, csize)]
+        bmu = jnp.concatenate(parts) if len(parts) > 1 else parts[0]
     else:
-        keep = None
-        xb_use = xb_local
-        if overlap_chunks > 1:
-            # collective/compute pipelining: split the batch so chunk k's
-            # winner all_gather rides ICI while chunk k+1's distance
-            # matmul runs on the MXU.  Exactly the same math as the
-            # unchunked search (winners are per-sample independent) —
-            # the split only gives XLA's latency-hiding scheduler the
-            # freedom to overlap (BASELINE.md north-star).
-            Bl = xb_local.shape[0]
-            k = max(1, min(overlap_chunks, Bl))
-            csize = -(-Bl // k)
-            parts = []
-            for s in range(0, Bl, csize):
-                _, bmu_c = sharded_winner_search(
-                    xb_local[s:s + csize], codes_local, n_local, use_pallas)
-                parts.append(bmu_c)
-            bmu = jnp.concatenate(parts) if len(parts) > 1 else parts[0]
-        else:
-            _, bmu = sharded_winner_search(xb_local, codes_local, n_local,
-                                           use_pallas)
+        _, bmu = sharded_winner_search(xb_local, codes_local, n_local)
     if fixed_local is not None:
         bmu = jnp.where(fixed_local >= 0, fixed_local, bmu)
     # per-sample effective alpha (weight= scaling; empty samples -> 0)
@@ -113,34 +93,18 @@ def sharded_som_step(
         a = 1.0 - jnp.power(1.0 - a, w)
     if mask_local is not None:
         a = jnp.where(jnp.all(mask_local != 0, axis=-1), 0.0, a)
-    # W columns for local rows only: distances bmu-coord -> local coords
-    c = coords_full[bmu]  # (Bl, 2)
-    d = c[:, None, :] - coords_local[None, :, :]
-    d2 = jnp.sum(d * d, axis=-1)  # (Bl, noc/S)
-    if gaussian:
-        W = a[:, None] * jnp.exp(-d2 / (2.0 * radius * radius))
-    else:
-        W = jnp.where(d2 <= radius * radius, a[:, None], 0.0)
-    wx = jax.lax.dot_general(
-        W, xb_use, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # (noc/S, D)
-    if keep is not None:
-        wsum = jax.lax.dot_general(
-            W, keep, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32
-        )  # (noc/S, D) per-component weight mass
-    else:
-        wsum = jnp.sum(W, axis=0)[:, None]
+    shard = jax.lax.axis_index("model").astype(jnp.int32)
+    wx, wsum = dispatch.som_accumulate(
+        xb_local, bmu, a, radius, n_rows=n_local, xdim=xdim, hexa=hexa,
+        gaussian=gaussian, unit_offset=shard * n_local, mask=mask_local)
     # combine partial accumulators over the data axis
     wx = jax.lax.psum(wx, "data")
     wsum = jax.lax.psum(wsum, "data")
-    from ..models.fast import _guarded_sum_update
-
-    return _guarded_sum_update(codes_local, wx, wsum)
+    return dispatch.guarded_blend(codes_local, wx, wsum)
 
 
 def sharded_olvq1_step(
-    codes_local, labels_full, alphas_full, xb_local, xlab_local,
-    clip: float, use_pallas: bool = False,
+    codes_local, labels_full, alphas_full, xb_local, xlab_local, clip: float,
 ):
     """One sharded minibatch olvq1 step (runs inside shard_map).
 
@@ -157,7 +121,7 @@ def sharded_olvq1_step(
     hit-count (a/(1+k a), clipped a/(1-k a))."""
     n_local = codes_local.shape[0]
     noc = labels_full.shape[0]
-    _, gidx = sharded_winner_search(xb_local, codes_local, n_local, use_pallas)
+    _, gidx = sharded_winner_search(xb_local, codes_local, n_local)
 
     correct = labels_full[gidx] == xlab_local  # (Bl,)
     a = alphas_full[gidx]
@@ -190,12 +154,11 @@ def sharded_olvq1_step(
     return codes_local + delta, new_a
 
 
-def make_sharded_olvq1_train_step(mesh: Mesh, clip: float = 0.3,
-                                  use_pallas: bool = False) -> Callable:
+def make_sharded_olvq1_train_step(mesh: Mesh, clip: float = 0.3) -> Callable:
     """step(codes (noc,D), labels (noc,), alphas (noc,), xb (B,D),
     xlabels (B,)) -> (codes, alphas); codes sharded P('model', None),
     batch P('data')."""
-    fn = functools.partial(sharded_olvq1_step, clip=clip, use_pallas=use_pallas)
+    fn = functools.partial(sharded_olvq1_step, clip=clip)
     smapped = jax.shard_map(
         lambda c, l, a, x, xl: fn(c, l, a, x, xl),
         mesh=mesh,
@@ -271,23 +234,22 @@ def make_dim_sharded_winner(mesh: Mesh, chunk: int = 2048) -> Callable:
 
 
 def make_sharded_som_train_step(
-    mesh: Mesh, gaussian: bool, use_pallas: bool = False,
+    mesh: Mesh, gaussian: bool, xdim: int, hexa: bool,
     masked: bool = False, weighted: bool = False, fixed: bool = False,
     overlap_chunks: int = 1,
 ) -> Callable:
     """Build a jitted sharded train step:
-    step(codes (noc, D), xb (B, D), coords (noc, 2), alpha, radius,
-    [mask (B, D)], [weights (B,)], [fixed_bmu (B,)]) -> codes, with codes
-    sharded P('model', None), per-sample arrays P('data', ...).  The
-    optional trailing args appear in that order for whichever of
-    masked/weighted/fixed are True."""
-    fn = functools.partial(sharded_som_step, gaussian=gaussian,
-                           use_pallas=use_pallas, overlap_chunks=overlap_chunks)
+    step(codes (noc, D), xb (B, D), alpha, radius, [mask (B, D)],
+    [weights (B,)], [fixed_bmu (B,)]) -> codes, with codes sharded
+    P('model', None), per-sample arrays P('data', ...).  The optional
+    trailing args appear in that order for whichever of
+    masked/weighted/fixed are True.  `xdim`/`hexa` give the map's grid
+    (the update computes grid distances from unit indices)."""
+    fn = functools.partial(sharded_som_step, gaussian=gaussian, xdim=xdim,
+                           hexa=hexa, overlap_chunks=overlap_chunks)
     in_specs = [
         P("model", None),  # codebook rows
         P("data", None),  # batch rows
-        P("model", None),  # coords of local rows
-        P(),  # full coords, replicated
         P(),  # alpha
         P(),  # radius
     ]
@@ -302,8 +264,8 @@ def make_sharded_som_train_step(
         in_specs.append(P("data"))
         kw_order.append("fixed_local")
 
-    def call(c, x, cl, cf, a, r, *extras):
-        return fn(c, x, cl, cf, a, r, **dict(zip(kw_order, extras)))
+    def call(c, x, a, r, *extras):
+        return fn(c, x, a, r, **dict(zip(kw_order, extras)))
 
     smapped = jax.shard_map(
         call,
@@ -315,13 +277,11 @@ def make_sharded_som_train_step(
     return jax.jit(smapped)
 
 
-def shard_arrays(mesh: Mesh, codes, xb, coords):
-    """Place arrays with the training-step shardings."""
+def shard_arrays(mesh: Mesh, codes, xb):
+    """Place the codebook and a batch with the training-step shardings."""
     cs = jax.device_put(codes, NamedSharding(mesh, P("model", None)))
     xs = jax.device_put(xb, NamedSharding(mesh, P("data", None)))
-    cl = jax.device_put(coords, NamedSharding(mesh, P("model", None)))
-    cf = jax.device_put(coords, NamedSharding(mesh, P()))
-    return cs, xs, cl, cf
+    return cs, xs
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +302,7 @@ class ClassBlockedOLVQ1:
     unpermuted run up to the row permutation, which `codes()` undoes)."""
 
     def __init__(self, mesh: Mesh, codes, code_labels, alphas=None,
-                 clip: float = 0.3, use_pallas: bool = False):
+                 clip: float = 0.3):
         import numpy as np
 
         from .mesh import class_blocked_order
@@ -351,8 +311,7 @@ class ClassBlockedOLVQ1:
         labels = np.asarray(code_labels)
         self.order = class_blocked_order(labels)
         self.inv = np.argsort(self.order)
-        self._step = make_sharded_olvq1_train_step(mesh, clip=clip,
-                                                   use_pallas=use_pallas)
+        self._step = make_sharded_olvq1_train_step(mesh, clip=clip)
         n = labels.shape[0]
         if alphas is None:
             alphas = jnp.full((n,), clip, dtype=jnp.float32)
@@ -462,208 +421,17 @@ def make_ring_winner(mesh: Mesh) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# Fused TP train step: ONE pass over each codebook shard per training step
-# ---------------------------------------------------------------------------
-
-def make_sharded_fused_som_train_step(
-    mesh: Mesh, gaussian: bool, xdim: int, hexa: bool,
-    tile_n: int = 512, d_real=None,
-) -> Callable:
-    """Software-pipelined tensor-parallel fused step: per model shard,
-    ONE pass over the local codebook rows applies batch t's neighborhood
-    update AND computes batch t+1's local winner candidates against the
-    just-updated rows (ops.pallas_som.som_fused_train_step with the
-    shard's global unit offset); the global winner is then an
-    all_gather-min of S (val, global_index) pairs over the model axis —
-    O(B*S) scalars on ICI.  versus the unfused sharded step's separate
-    winner + update passes (2-3 codebook reads per step), every shard
-    reads and writes its rows ONCE.
-
-    The batch is replicated over the mesh (the update blend is computed
-    in-kernel per shard, which is only exact when each shard sees the
-    WHOLE batch), so this step wants a mesh with data-axis size 1 —
-    pure TP, the large-codebook regime this path exists for; it raises
-    otherwise.  Winner tie-break: lowest global index (lvq_pak.c:79).
-
-    step(codes P('model', None), xb replicated, bmu replicated,
-    xb_next replicated, alpha, radius) -> (codes', bmu_next (B',))."""
-    if mesh.shape["data"] != 1:
-        raise ValueError(
-            "make_sharded_fused_som_train_step: needs data-axis size 1 "
-            "(batch replicated; the in-kernel blend is per whole batch) "
-            f"— got data={mesh.shape['data']}")
-
-    from ..ops.pallas_som import som_fused_train_step
-
-    def local(codes_l, xb, bmu, xn, alpha, radius):
-        n_local = codes_l.shape[0]
-        shard = jax.lax.axis_index("model")
-        off = shard.astype(jnp.int32) * n_local
-        c2, idx_l, val_l = som_fused_train_step(
-            codes_l, xb, bmu, xn, xdim, hexa, alpha, radius,
-            gaussian=gaussian, tile_n=min(tile_n, n_local),
-            factored=False, d_real=d_real, unit_offset=off,
-        )
-        gidx_l = idx_l.astype(jnp.int32) + off
-        vals = jax.lax.all_gather(val_l, "model")    # (S, B')
-        gidxs = jax.lax.all_gather(gidx_l, "model")  # (S, B')
-        best_val = jnp.min(vals, axis=0)
-        cand = jnp.where(vals == best_val[None, :], gidxs,
-                         jnp.iinfo(jnp.int32).max)
-        bmu_next = jnp.min(cand, axis=0)
-        return c2, bmu_next
-
-    smapped = jax.shard_map(
-        local,
-        mesh=mesh,
-        check_vma=False,
-        in_specs=(P("model", None), P(), P(), P(), P(), P()),
-        out_specs=(P("model", None), P()),
-    )
-    return jax.jit(smapped)
-
-
-def make_mixed_fused_som_train_step(
-    mesh: Mesh, gaussian: bool, xdim: int, hexa: bool,
-    tile_n: int = 512, d_real=None, use_pallas: bool = True,
-    overlap_segments: int = 1,
-) -> Callable:
-    """Fused SOM step for MIXED data x model meshes (VERDICT r3 task 4):
-    the batch shards over `data`, the codebook over `model`, and the
-    neighborhood accumulators Wt X / Wt 1 — which need no codebook at
-    all — are computed per device with a single Pallas pass
-    (ops.pallas_som.som_neighborhood_accumulate), psummed over `data`,
-    then the blend + next-batch winner search run against the summed
-    totals: one codebook read+write per step per shard plus one winner
-    read, versus the two-pass sharded_som_step's W-materializing update.
-    The winner of each data shard resolves over `model` with the same
-    allgather-min of (val, global_index) pairs as the pure-TP fused step
-    (ties: lowest global index, lvq_pak.c:79).
-
-    step(codes P('model', None), xb P('data', None), bmu P('data'),
-         xb_next P('data', None), alpha (scalar or (B,) replicated),
-         radius) -> (codes', bmu_next P('data'))
-
-    Works for any data/model axis sizes >= 1 (pure DP included); for
-    data == 1 prefer make_sharded_fused_som_train_step (one codebook
-    pass instead of two).
-
-    `overlap_segments > 1` splits the shard's ROWS into that many
-    segments, accumulating and psumming each separately: segment k's
-    accumulators are independent of segment k+1's, so XLA can hide
-    segment k's data-axis psum under segment k+1's accumulate pass —
-    the psum is the dominant per-step term of the N-chip scaling model
-    (docs/SCALING.md: overlapping it bounds the 64-chip mixed layout at
-    ~56 % vs ~40 % efficiency).  Per-element additions are unchanged,
-    so the result is EXACTLY equal to overlap_segments=1 (tested)."""
-    from ..models.fast import _guarded_sum_update
-    from ..ops.pallas_som import som_neighborhood_accumulate
-
-    dp = mesh.shape["data"]
-
-    def _pick_tile(n_local: int) -> int:
-        # largest tile <= tile_n that DIVIDES the shard height (the
-        # accumulate/blend kernels do not row-pad; without this a shard
-        # like n_local=1040 with tile_n=512 raised at the first step)
-        t = min(tile_n, n_local)
-        t -= t % 8
-        while t >= 8 and n_local % t != 0:
-            t -= 8
-        if t < 8:
-            raise ValueError(
-                f"make_mixed_fused_som_train_step: shard height "
-                f"{n_local} must be a multiple of 8")
-        return t
-
-    def local(codes_l, xb_l, bmu_l, xn_l, alpha, radius):
-        n_local = codes_l.shape[0]
-        shard = jax.lax.axis_index("model").astype(jnp.int32)
-        off = shard * n_local
-        a = jnp.asarray(alpha, jnp.float32)
-        if a.ndim == 1:
-            # replicated full-batch per-sample alpha: slice this data
-            # shard's window
-            d = jax.lax.axis_index("data")
-            Bl = xb_l.shape[0]
-            a = jax.lax.dynamic_slice(a, (d * Bl,), (Bl,))
-        tn = _pick_tile(n_local)  # pass-B (blend+winner) tile
-        segs = overlap_segments
-        if segs > 1 and (n_local % segs or (n_local // segs) % 8):
-            segs = 1  # fall back: segments must be 8-row-aligned
-        if segs > 1 and dp > 1:
-            H = n_local // segs
-            tn_k = _pick_tile(H)
-            parts = []
-            for k in range(segs):
-                a_k, w_k = som_neighborhood_accumulate(
-                    xb_l, bmu_l, H, xdim, hexa, a, radius,
-                    gaussian=gaussian, tile_n=tn_k,
-                    unit_offset=off + k * H,
-                    interpret=not use_pallas or None)
-                # psum of row-segment k is independent of segment k+1's
-                # accumulate — XLA schedules the collective under it
-                parts.append((jax.lax.psum(a_k, "data"),
-                              jax.lax.psum(w_k, "data")))
-            acc = jnp.concatenate([p[0] for p in parts])
-            wsum = jnp.concatenate([p[1] for p in parts])
-        else:
-            acc, wsum = som_neighborhood_accumulate(
-                xb_l, bmu_l, n_local, xdim, hexa, a, radius,
-                gaussian=gaussian, tile_n=tn,
-                unit_offset=off, interpret=not use_pallas or None)
-            if dp > 1:
-                acc = jax.lax.psum(acc, "data")
-                wsum = jax.lax.psum(wsum, "data")
-        # pass B: blend + next batch shard's winner in ONE codebook pass
-        if use_pallas and jax.default_backend() != "cpu":
-            from ..ops.pallas_som import som_blend_winner
-
-            newc, val_l, idx_l = som_blend_winner(
-                codes_l, acc, wsum, xn_l, tile_n=tn, d_real=d_real)
-        else:
-            from ..ops.distance import find_winners
-
-            newc = _guarded_sum_update(codes_l, acc, wsum)
-            idx_l, val_l = find_winners(xn_l, newc)
-        gidx_l = idx_l.astype(jnp.int32) + off
-        vals = jax.lax.all_gather(val_l, "model")    # (S, Bl)
-        gidxs = jax.lax.all_gather(gidx_l, "model")  # (S, Bl)
-        best_val = jnp.min(vals, axis=0)
-        cand = jnp.where(vals == best_val[None, :], gidxs,
-                         jnp.iinfo(jnp.int32).max)
-        bmu_next = jnp.min(cand, axis=0)
-        return newc, bmu_next
-
-    smapped = jax.shard_map(
-        local,
-        mesh=mesh,
-        check_vma=False,
-        in_specs=(P("model", None), P("data", None), P("data"),
-                  P("data", None), P(), P()),
-        out_specs=(P("model", None), P("data")),
-    )
-    return jax.jit(smapped)
-
-
-# ---------------------------------------------------------------------------
 # Sharded fixed-alpha LVQ steps (lvq1 / lvq2.1 / lvq3)
 # ---------------------------------------------------------------------------
 
-def sharded_top2(xb_local, codes_local, n_local: int, use_pallas: bool = False):
+def sharded_top2(xb_local, codes_local, n_local: int):
     """Inside shard_map: global top-2 (distances, global indices) for the
     local batch shard against the model-sharded codebook.  Per shard:
     local top-2; merge: all_gather of S (2 val, 2 gidx) candidate pairs,
     then two selection passes (distance asc, lowest global index on
-    ties — lax.top_k's convention, matching models.fast.lvq23_batch_step's
-    host oracle).  Returns (d1, i1, d2, i2), each (Bl,)."""
-    from ..ops.distance import topk_winners
-
-    if use_pallas:
-        from ..ops.pallas_distance import dist_topk
-
-        vals, idx = dist_topk(xb_local, codes_local, 2)
-    else:
-        idx, vals = topk_winners(xb_local, codes_local, 2)
+    ties — lax.top_k's convention, matching models.fast.lvq23_batch_step).
+    Returns (d1, i1, d2, i2), each (Bl,)."""
+    idx, vals = dispatch.find_top2(xb_local, codes_local)
     shard = jax.lax.axis_index("model").astype(jnp.int32)
     gidx = idx.astype(jnp.int32) + shard * n_local
     vs = jax.lax.all_gather(vals, "model", axis=1)   # (Bl, S, 2)
@@ -686,7 +454,7 @@ def sharded_top2(xb_local, codes_local, n_local: int, use_pallas: bool = False):
 
 def sharded_lvq_step(
     codes_local, labels_full, xb_local, xlab_local, alpha,
-    algorithm: str, winlen: float, epsilon: float, use_pallas: bool = False,
+    algorithm: str, winlen: float, epsilon: float,
 ):
     """One sharded minibatch lvq1/lvq2.1/lvq3 step (inside shard_map).
     Update math matches models.fast.lvq1_batch_step / lvq23_batch_step;
@@ -708,14 +476,12 @@ def sharded_lvq_step(
         return jax.ops.segment_sum(contrib, lidx_c, num_segments=n_local)
 
     if algorithm == "lvq1":
-        _, gidx = sharded_winner_search(xb_local, codes_local, n_local,
-                                        use_pallas)
+        _, gidx = sharded_winner_search(xb_local, codes_local, n_local)
         correct = labels_full[gidx] == xlab_local
         sign = jnp.where(correct, alpha, -alpha)
         delta = local_delta(gidx, sign)
     else:
-        d1, i1, d2, i2 = sharded_top2(xb_local, codes_local, n_local,
-                                      use_pallas)
+        d1, i1, d2, i2 = sharded_top2(xb_local, codes_local, n_local)
         l1, l2 = labels_full[i1], labels_full[i2]
         wl = (1.0 - winlen) / (1.0 + winlen)
         in_window = d1 / jnp.maximum(d2, 1e-30) > wl
@@ -737,7 +503,7 @@ def sharded_lvq_step(
 
 def make_sharded_lvq_train_step(
     mesh: Mesh, algorithm: str = "lvq1", winlen: float = 0.3,
-    epsilon: float = 0.1, use_pallas: bool = False,
+    epsilon: float = 0.1,
 ) -> Callable:
     """step(codes (noc, D) P('model', None), labels (noc,) replicated,
     xb (B, D) P('data', None), xlabels (B,) P('data'), alpha) -> codes.
@@ -746,8 +512,7 @@ def make_sharded_lvq_train_step(
     if algorithm not in ("lvq1", "lvq2", "lvq3"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     fn = functools.partial(sharded_lvq_step, algorithm=algorithm,
-                           winlen=winlen, epsilon=epsilon,
-                           use_pallas=use_pallas)
+                           winlen=winlen, epsilon=epsilon)
     smapped = jax.shard_map(
         lambda c, l, x, xl, a: fn(c, l, x, xl, a),
         mesh=mesh,
@@ -763,9 +528,7 @@ def make_sharded_lvq_train_step(
     def checked(codes, labels, xb, xlabels, alpha):
         # lvq2/lvq3 run a per-shard local top-2 (sharded_top2): a model
         # shard holding < 2 codebook rows cannot produce two candidates
-        # (lax.top_k(k=2) errors on the host path; the pallas path would
-        # surface padded out-of-range indices) — mirror the data-axis
-        # check in make_sharded_fused_som_train_step
+        # (the top-2 search needs two rows per shard)
         if codes.shape[0] < 2 * n_shards:
             raise ValueError(
                 f"sharded {algorithm}: every model shard needs >= 2 "

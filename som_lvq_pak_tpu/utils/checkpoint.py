@@ -4,7 +4,7 @@ The reference's recovery story is file-based: codebooks are plain text
 files and olvq1 persists per-code learning rates to a `.lra` sidecar so
 training can continue (datafile.c:1030-1086, lvq_rout.c:614-627); the
 interval snapshot subsystem writes intermediate codebooks
-(lvq_pak.c:663-867).  The TPU equivalent checkpoints the full train
+(lvq_pak.c:663-867).  The framework's equivalent checkpoints the full train
 state — codebook array, per-code alphas, step counter, RNG state —
 atomically, with optional background writes, so a multi-host run can
 restart from the latest step (SURVEY.md §5).

@@ -2,7 +2,7 @@
 
 Mprint replicates the reference's 60-dot progress meter with elapsed/ETA
 in seconds or minutes (mprint, lvq_pak.c:418-456), called from every
-long loop at verbosity >= 1.  StepTimer + trace() are the TPU additions:
+long loop at verbosity >= 1.  StepTimer + trace() are the framework's additions:
 wall-clock step rates and an optional jax.profiler capture around a
 training region (SURVEY.md §5 'Tracing / profiling')."""
 

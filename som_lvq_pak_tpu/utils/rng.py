@@ -11,7 +11,7 @@ that every pipeline is reproducible:
 Seeds, codebook randinit, and per-lap data shuffles all draw from this
 stream.  We replicate it on the host (it is cheap scalar work) so that
 framework runs at equal seed produce bit-identical initial codebooks and
-sample orders to the C package; device-side RNG (jax.random / pltpu.prng)
+sample orders to the C package; device-side RNG (jax.random)
 is used only for the non-parity fast paths.
 """
 

@@ -41,7 +41,7 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from som_lvq_pak_tpu.data.streaming import StreamingReader
-    from som_lvq_pak_tpu.models.fast import unit_coords
+    from som_lvq_pak_tpu.models.fast import som_batch_step, unit_coords
     from som_lvq_pak_tpu.parallel.mesh import make_mesh
     from som_lvq_pak_tpu.parallel.sharded import (
         make_sharded_olvq1_train_step,
@@ -77,9 +77,10 @@ def main() -> int:
     )
 
     # --- sharded SOM step
-    som_step = make_sharded_som_train_step(mesh, gaussian=False, use_pallas=False)
-    cs, _, cl, cf = shard_arrays(mesh, jnp.asarray(codes), jnp.zeros((B, D)), coords)
-    out = som_step(cs, xs, cl, cf, jnp.float32(0.05), jnp.float32(3.0))
+    som_step = make_sharded_som_train_step(mesh, gaussian=False, xdim=16,
+                                           hexa=True)
+    cs, _ = shard_arrays(mesh, jnp.asarray(codes), jnp.zeros((B, D)))
+    out = som_step(cs, xs, jnp.float32(0.05), jnp.float32(3.0))
     som_result = multihost_utils.process_allgather(out, tiled=True)
 
     # --- sharded olvq1 step
@@ -116,7 +117,7 @@ def main() -> int:
         for t in range(t0, t1):
             a = jnp.float32(0.05 * (K - t) / K)
             r = jnp.float32(1.0 + 2.0 * (K - t) / K)
-            state = som_step(state, global_batch(t), cl, cf, a, r)
+            state = som_step(state, global_batch(t), a, r)
         return state
 
     full = advance(cs, 0, K)
@@ -138,58 +139,22 @@ def main() -> int:
     np.testing.assert_allclose(
         np.asarray(resumed_g), np.asarray(full_g), rtol=1e-6, atol=1e-6)
 
-    # --- fused TP step under REAL multi-process execution: model-only
-    # 8-shard mesh spanning both processes; must equal the single-device
-    # fused kernel every process computes locally (VERDICT r3 task 8)
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
-    from som_lvq_pak_tpu.ops.pallas_som import som_fused_train_step
-    from som_lvq_pak_tpu.parallel.sharded import (
-        make_mixed_fused_som_train_step,
-        make_sharded_fused_som_train_step,
-    )
-
-    Dp = 128
-    cp = jnp.zeros((N, Dp), jnp.float32).at[:, :D].set(jnp.asarray(codes))
-    xb_full = jnp.zeros((B, Dp), jnp.float32).at[:, :D].set(
-        jnp.asarray(xb_global))
-    _, bmu0 = dist_argmin(xb_full, cp)
-    c_1d, bmu_1d, _ = som_fused_train_step(
-        cp, xb_full, bmu0, xb_full, 16, True, jnp.float32(0.05),
-        jnp.float32(3.0), gaussian=True, tile_n=8, factored=False)
-
+    # --- model-only 8-shard mesh spanning both processes (the default
+    # layout): the gaussian step must equal the single-device step every
+    # process computes locally
     mesh_tp = make_mesh(8, data=1, model=8)
-    fstep = make_sharded_fused_som_train_step(
-        mesh_tp, gaussian=True, xdim=16, hexa=True, tile_n=8)
-    cs_tp = jax.device_put(cp, NamedSharding(mesh_tp, P("model", None)))
-    c_tp, bmu_tp = fstep(cs_tp, xb_full, bmu0, xb_full,
-                         jnp.float32(0.05), jnp.float32(3.0))
+    tp_step = make_sharded_som_train_step(mesh_tp, gaussian=True, xdim=16,
+                                          hexa=True)
+    xb_full = jnp.asarray(xb_global)
+    c_1d = som_batch_step(jnp.asarray(codes), xb_full, coords,
+                          jnp.float32(0.05), jnp.float32(3.0), gaussian=True,
+                          xdim=16, hexa=True)
+    c_tp = tp_step(
+        jax.device_put(jnp.asarray(codes), NamedSharding(mesh_tp, P("model", None))),
+        xb_full, jnp.float32(0.05), jnp.float32(3.0))
     c_tp_g = multihost_utils.process_allgather(c_tp, tiled=True)
     np.testing.assert_allclose(np.asarray(c_tp_g), np.asarray(c_1d),
                                rtol=1e-5, atol=1e-5)
-    assert (np.asarray(bmu_tp) == np.asarray(bmu_1d)).all(), \
-        "fused TP winner mismatch under 2-process execution"
-
-    # --- MIXED data x model fused step on the main (data=nprocs) mesh:
-    # per-process accumulate -> cross-process psum over data -> blend ->
-    # allgather-min winner over model; equals the same fused oracle
-    xp_loc = np.zeros((local.shape[0], Dp), np.float32)
-    xp_loc[:, :D] = local
-    xs_p = multihost_utils.host_local_array_to_global_array(
-        xp_loc, mesh, P("data", None))
-    bmu0_sh = multihost_utils.host_local_array_to_global_array(
-        np.asarray(bmu0).reshape(nprocs, -1)[pid], mesh, P("data"))
-    mstep = make_mixed_fused_som_train_step(
-        mesh, gaussian=True, xdim=16, hexa=True, tile_n=8,
-        use_pallas=False)
-    c_mx, bmu_mx = mstep(
-        jax.device_put(cp, NamedSharding(mesh, P("model", None))),
-        xs_p, bmu0_sh, xs_p, jnp.float32(0.05), jnp.float32(3.0))
-    c_mx_g = multihost_utils.process_allgather(c_mx, tiled=True)
-    bmu_mx_g = multihost_utils.process_allgather(bmu_mx, tiled=True)
-    np.testing.assert_allclose(np.asarray(c_mx_g), np.asarray(c_1d),
-                               rtol=1e-4, atol=1e-4)
-    assert (np.asarray(bmu_mx_g) == np.asarray(bmu_1d)).all(), \
-        "mixed fused winner mismatch under 2-process execution"
 
     if pid == 0:
         np.savez(
@@ -203,8 +168,7 @@ def main() -> int:
             clabels=clabels,
             multi_full=np.asarray(full_g),
             multi_resumed=np.asarray(resumed_g),
-            fused_tp_ok=np.asarray(True),
-            mixed_fused_ok=np.asarray(True),
+            tp_ok=np.asarray(True),
         )
     multihost_utils.sync_global_devices("done")
     return 0

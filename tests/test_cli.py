@@ -364,8 +364,8 @@ def test_vfind_fast_degenerate_and_flag_fallback(ref_dir, tmp_path):
 
 
 def test_vsom_fast_extension(ref_dir, golden_dir, tmp_path):
-    """`vsom -fast` (extension): minibatch training through SOMTrainer's
-    fused pipeline — map learns (qerror drops vs the init), full-load
+    """`vsom -fast` (extension): minibatch training through SOMTrainer
+    — map learns (qerror drops vs the init), full-load
     and streamed (-buffer) variants both run."""
     os.chdir(tmp_path)
     rc, _ = run("randinit", "-din", f"{ref_dir}/ex.dat", "-cout", "f0.cod",

@@ -78,7 +78,7 @@ def test_lvq_trainer_accuracy(base, ex1, ex2, algorithm):
     hold the golden accuracy level (the reference's retrain stage,
     lvq_run.c:877-931, runs lvq1/2/3 exactly this way)."""
     tr = LVQTrainer(base, algorithm=algorithm, batch_size=64,
-                    use_pallas=False, seed=2)
+                    seed=2)
     out = tr.fit(ex1, rlen=5000, alpha=0.05)
     pct, _, _ = accuracy(ex2, out)
     assert pct > PARITY_ACCURACY - 2.0, f"{algorithm}: {pct:.2f}%"
@@ -95,11 +95,11 @@ def test_lvq_trainer_checkpoint_resume(base, ex1, tmp_path):
     d = str(tmp_path / "ck")
     tr = LVQTrainer(base, algorithm="lvq1", batch_size=64,
                     checkpoint_dir=d, checkpoint_interval=4,
-                    use_pallas=False, seed=3)
+                    seed=3)
     full = tr.fit(ex1, rlen=64 * 12, alpha=0.05)
 
     tr2 = LVQTrainer(base, algorithm="lvq1", batch_size=64,
-                     checkpoint_dir=d, use_pallas=False, seed=3)
+                     checkpoint_dir=d, seed=3)
     st = tr2.ckpt.load(8)
     assert st is not None and st.step == 8
     # drop newer checkpoints so the resume starts at step 8

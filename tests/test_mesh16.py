@@ -1,11 +1,11 @@
-"""16- and 32-device mesh validation (VERDICT r4 task 6 / r3 task 6).
+"""16- and 32-device mesh validation.
 
 The in-process suite runs on an 8-device virtual mesh (conftest); shape
-assumptions that happen to hold at 8 (tile divisibility, n_local % 8,
-batch % data-axis) can still break at 16/32.  These tests run the full
-`dryrun_multichip` sweep — every sharded path incl. the fused TP step,
-the mixed data x model step, sharded lvq3, and mesh checkpoint resume —
-in subprocesses with 16 (mesh 2 x 8) and 32 (mesh 4 x 8) virtual
+assumptions that happen to hold at 8 (shard heights, batch % data-axis)
+can still break at 16/32.  These tests run the full `dryrun_multichip`
+sweep (every sharded path incl. the mixed data x model step, the pure
+model-parallel step, sharded lvq3, and mesh checkpoint resume) in
+subprocesses with 16 (mesh 2 x 8) and 32 (mesh 2 x 16) virtual
 devices."""
 
 import os

@@ -72,7 +72,7 @@ def test_two_process_distributed(tmp_path):
     coords = unit_coords(16, 4, hexa=True)
     ref_som = som_batch_step(
         jnp.asarray(data["codes"]), jnp.asarray(data["xb"]), coords,
-        0.05, 3.0, gaussian=False, use_pallas=False,
+        0.05, 3.0, gaussian=False, xdim=16, hexa=True,
     )
     np.testing.assert_allclose(data["som"], np.asarray(ref_som),
                                rtol=1e-5, atol=1e-5)
@@ -80,7 +80,7 @@ def test_two_process_distributed(tmp_path):
     ref_codes, ref_a = olvq1_batch_step(
         jnp.asarray(data["codes"]), jnp.asarray(data["clabels"]),
         jnp.full((data["codes"].shape[0],), 0.3, dtype=jnp.float32),
-        jnp.asarray(data["xb"]), jnp.asarray(data["xl"]), use_pallas=False,
+        jnp.asarray(data["xb"]), jnp.asarray(data["xl"]),
     )
     np.testing.assert_allclose(data["lvq_codes"], np.asarray(ref_codes),
                                rtol=1e-5, atol=1e-5)

@@ -65,17 +65,17 @@ def test_qerror_fast_close(golden_dir, ex_dat):
 
 
 def test_qerror_fast_whole_array_path(golden_dir, ex_dat, monkeypatch):
-    """Large evaluations take the single-dispatch whole-array path (the
-    r5 one-dispatch 1M eval); shrinking the chunk threshold forces it at
-    test size — it must agree with the chunked executor, masked
-    included (all-masked rows contribute 0, som_rout.c:704-713)."""
-    from som_lvq_pak_tpu.models import som as som_mod
+    """Large evaluations run the XLA winner search over row chunks
+    (ops.dispatch._XLA_BLOCK_ELEMS); shrinking the block forces it at
+    test size. It must agree with the one-block run, masked included
+    (all-masked rows contribute 0, som_rout.c:704-713)."""
+    from som_lvq_pak_tpu.ops import dispatch
 
     codes = read_data(os.path.join(golden_dir, "som_2.cod"))
-    q_chunked = find_qerror(codes, ex_dat, mode="fast")
-    monkeypatch.setattr(som_mod, "_QERROR_CHUNK", 256)
-    assert ex_dat.n > 256
     q_whole = find_qerror(codes, ex_dat, mode="fast")
+    monkeypatch.setattr(dispatch, "_XLA_BLOCK_ELEMS", 256 * codes.n)
+    assert ex_dat.n > 256
+    q_chunked = find_qerror(codes, ex_dat, mode="fast")
     assert abs(q_whole - q_chunked) / q_chunked < 1e-5
 
     # masked variant: mask one component of some rows, ALL of others
@@ -85,9 +85,9 @@ def test_qerror_fast_whole_array_path(golden_dir, ex_dat, monkeypatch):
     mask[10:200, 0] = 1
     mask[300:310, :] = 1  # empty samples: skipped entirely
     masked = dataclasses.replace(ex_dat, mask=mask)
-    qm_whole = find_qerror(codes, masked, mode="fast")
-    monkeypatch.setattr(som_mod, "_QERROR_CHUNK", 65536)
     qm_chunked = find_qerror(codes, masked, mode="fast")
+    monkeypatch.undo()
+    qm_whole = find_qerror(codes, masked, mode="fast")
     assert abs(qm_whole - qm_chunked) / qm_chunked < 1e-5
     qm_par = find_qerror(codes, masked, mode="parity")
     assert abs(qm_whole - qm_par) / qm_par < 1e-4

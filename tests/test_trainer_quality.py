@@ -44,9 +44,9 @@ def test_somtrainer_reaches_parity_quality(ex_dat, update):
     codes = _rand_codes(ex_dat)
     q0 = find_qerror(codes, ex_dat, mode="fast") / ex_dat.n
 
-    tr = SOMTrainer(codes, batch_size=128, update=update, use_pallas=False)
+    tr = SOMTrainer(codes, batch_size=128, update=update)
     codes = tr.fit(ex_dat, rlen=10000, alpha=0.05, radius=10.0)
-    tr = SOMTrainer(codes, batch_size=128, update=update, use_pallas=False)
+    tr = SOMTrainer(codes, batch_size=128, update=update)
     codes = tr.fit(ex_dat, rlen=20000, alpha=0.02, radius=3.0)
 
     q = find_qerror(codes, ex_dat, mode="fast") / ex_dat.n
@@ -86,7 +86,7 @@ def test_som_sum_update_stable_at_bench_hyperparams(ex_dat):
         idx = jax.random.randint(sub, (2048,), 0, ex_dat.n)
         M = som_batch_step(
             M, X[idx], coords, jnp.float32(0.02), jnp.float32(3.0),
-            gaussian=True, update="sum", use_pallas=False,
+            gaussian=True, update="sum",
         )
     Mn = np.asarray(M)
     assert np.isfinite(Mn).all(), "sum update diverged at bench hyperparameters"
@@ -107,7 +107,7 @@ def test_olvq1_trainer_accuracy_near_golden(ref_dir, golden_dir):
     train = read_data(os.path.join(ref_dir, "ex1.dat"))
     test = read_data(os.path.join(ref_dir, "ex2.dat"))
 
-    tr = OLVQ1Trainer(codes, batch_size=64, alpha=0.3, use_pallas=False, seed=1)
+    tr = OLVQ1Trainer(codes, batch_size=64, alpha=0.3, seed=1)
     out = tr.fit(train, rlen=5000)
     pct, _, _ = accuracy(test, out)
     assert pct > PARITY_ACCURACY - 1.5, f"olvq1 minibatch accuracy {pct:.2f}%"
@@ -135,11 +135,10 @@ def test_large_som_example_regression():
 # ---------------------------------------------------------------------------
 
 def test_fast_masked_winners_match_parity(golden_dir):
-    """Pallas masked dist_argmin and XLA find_winners both equal the
-    exact parity scan on the real masked fixture."""
-    from som_lvq_pak_tpu.ops import exact
+    """The masked winner op and XLA find_winners both equal the exact
+    parity scan on the real masked fixture."""
+    from som_lvq_pak_tpu.ops import dispatch, exact
     from som_lvq_pak_tpu.ops.distance import find_winners
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
 
     data = read_data(os.path.join(golden_dir, "wmask.dat"))
     codes = read_data(os.path.join(golden_dir, "wmask_r.cod"))
@@ -151,13 +150,14 @@ def test_fast_masked_winners_match_parity(golden_dir):
     mk = jnp.asarray(data.mask)
     idx_xla, _ = find_winners(X, M, mk)
     np.testing.assert_array_equal(np.asarray(idx_xla), want)
-    _, idx_pl = dist_argmin(X, M, mask=mk, tile_b=32, tile_n=128)
-    np.testing.assert_array_equal(np.asarray(idx_pl), want)
+    idx_op, _ = dispatch.find_bmu(X, M, mk)
+    np.testing.assert_array_equal(np.asarray(idx_op), want)
 
 
 def test_som_batch_step_masked_weighted_pallas_matches_xla(golden_dir):
-    """Fused Pallas step == XLA step on masked+weighted data (both carry
-    the per-(unit, comp) weight-mass semantics)."""
+    """The index-geometry step (xdim/hexa given) == the coordinate-table
+    step on masked+weighted data (both carry the per-(unit, comp)
+    weight-mass semantics)."""
     from som_lvq_pak_tpu.models.fast import som_batch_step, unit_coords
 
     data = read_data(os.path.join(golden_dir, "wmask.dat"))
@@ -168,8 +168,8 @@ def test_som_batch_step_masked_weighted_pallas_matches_xla(golden_dir):
     mk = jnp.asarray(data.mask)
     wt = jnp.asarray(data.weights_or_ones())
     kw = dict(gaussian=True, update="sum", mask=mk, weights=wt)
-    out_xla = som_batch_step(M, X, coords, 0.05, 2.0, use_pallas=False, **kw)
-    out_pl = som_batch_step(M, X, coords, 0.05, 2.0, use_pallas=True,
+    out_xla = som_batch_step(M, X, coords, 0.05, 2.0, **kw)
+    out_pl = som_batch_step(M, X, coords, 0.05, 2.0,
                             xdim=6, hexa=True, **kw)
     np.testing.assert_allclose(np.asarray(out_pl), np.asarray(out_xla),
                                rtol=1e-5, atol=1e-5)
@@ -187,7 +187,7 @@ def test_som_batch_step_masked_comps_untouched(golden_dir):
     mk[:, 3] = 1  # mask comp 3 everywhere
     out = som_batch_step(
         jnp.asarray(codes.points), jnp.asarray(data.points), coords,
-        0.05, 2.0, gaussian=True, use_pallas=False, mask=jnp.asarray(mk),
+        0.05, 2.0, gaussian=True, mask=jnp.asarray(mk),
     )
     np.testing.assert_array_equal(np.asarray(out)[:, 3], codes.points[:, 3])
     assert not np.allclose(np.asarray(out)[:, 0], codes.points[:, 0])
@@ -210,7 +210,7 @@ def test_som_batch_step_fixed_bypasses_winner(golden_dir):
     M = jnp.asarray(codes.points)
     out = som_batch_step(
         M, jnp.asarray(data.points[s:s + 1]), coords, 0.5, 0.5,
-        gaussian=False, use_pallas=False, fixed_bmu=jnp.asarray(ff[s:s + 1]),
+        gaussian=False, fixed_bmu=jnp.asarray(ff[s:s + 1]),
     )
     moved = np.nonzero(np.abs(np.asarray(out) - codes.points).sum(axis=1) > 0)[0]
     np.testing.assert_array_equal(moved, [ff[s]])
@@ -227,7 +227,7 @@ def test_somtrainer_masked_weighted_quality(golden_dir):
                     use_weights=True, mode="parity")
     q_par = find_qerror(par, data, mode="parity") / data.n
 
-    tr = SOMTrainer(codes, batch_size=16, use_pallas=False, seed=3)
+    tr = SOMTrainer(codes, batch_size=16, seed=3)
     fast = tr.fit(data, rlen=600, alpha=0.05, radius=4.0, use_weights=True)
     q_fast = find_qerror(fast, data, mode="parity") / data.n
     # NB: on this 120-sample fixture the reference schedule itself ends
@@ -265,304 +265,7 @@ def test_olvq1_batch_step_masked_matches_oracle():
         ncor[w] += ok; nwr[w] += not ok
     out, _ = olvq1_batch_step(
         jnp.asarray(M), jnp.asarray(clab), jnp.asarray(alphas),
-        jnp.asarray(X), jnp.asarray(xlab), use_pallas=False,
+        jnp.asarray(X), jnp.asarray(xlab),
         mask=jnp.asarray(mk),
     )
     np.testing.assert_allclose(np.asarray(out), Mref, rtol=1e-5, atol=1e-5)
-
-
-# ---------------------------------------------------------------------------
-# Fused update+next-winner training step (ops.pallas_som.som_fused_train_step)
-# ---------------------------------------------------------------------------
-
-def test_fused_step_matches_two_kernel_sequence():
-    """codes' = update(codes, batch_t); winners' = argmin(batch_t+1, codes')
-    — the fused single-pass kernel must equal the two-kernel sequence,
-    including with a row-padded codebook (noc not a tile multiple)."""
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
-    from som_lvq_pak_tpu.ops.pallas_som import (
-        som_fused_train_step,
-        som_neighborhood_update_idx,
-    )
-
-    for noc, tile_n in ((256, 128), (200, 128)):  # aligned + padded
-        xdim = 8
-        k1, k2, k3 = jax.random.split(jax.random.PRNGKey(noc), 3)
-        codes = jax.random.normal(k1, (noc, 128), dtype=jnp.float32)
-        xb = jax.random.normal(k2, (64, 128), dtype=jnp.float32) * 2
-        xn = jax.random.normal(k3, (64, 128), dtype=jnp.float32) * 2
-        _, bmu = dist_argmin(xb, codes, tile_b=64, tile_n=128)
-        c_ref = som_neighborhood_update_idx(codes, xb, bmu, xdim, True,
-                                            0.05, 3.0, gaussian=True)
-        _, bmu_ref = dist_argmin(xn, c_ref, tile_b=64, tile_n=128)
-        c_f, bmu_f, _ = som_fused_train_step(
-            codes, xb, bmu, xn, xdim, True, 0.05, 3.0,
-            gaussian=True, tile_n=tile_n,
-        )
-        np.testing.assert_allclose(np.asarray(c_f), np.asarray(c_ref),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(bmu_f), np.asarray(bmu_ref))
-
-
-def test_fused_factored_kernel_matches_unfactored():
-    """The separable-neighborhood kernel (x/y axis-factor scratch, one
-    VPU multiply per tile) must reproduce the closed-form kernel to
-    float rounding — codes, winner indices, and the val contract
-    (partial sq-dist) — for hexa/rect x gaussian/bubble, with and
-    without the real-D winner contraction slice."""
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
-    from som_lvq_pak_tpu.ops.pallas_som import (
-        _factored_geometry_ok,
-        som_fused_train_step,
-    )
-
-    assert _factored_geometry_ok(65536, 256, 512, True)
-    assert not _factored_geometry_ok(65536, 256, 512 + 8, True)
-    assert not _factored_geometry_ok(96, 12, 24, True)  # xdim % 8 != 0
-
-    # tn_mult=1 on hexa exercises the dual-parity path (one grid row per
-    # tile, stacked even/odd x-patterns selected by i % 2)
-    for xdim, ydim, hexa, gaussian, d_real, tn_mult in (
-        (16, 8, True, True, None, 2),
-        (16, 8, True, False, None, 2),
-        (16, 12, False, True, 64, 2),
-        (8, 8, True, True, 64, 2),
-        (16, 8, True, True, 64, 1),
-        (16, 8, True, False, None, 1),
-    ):
-        noc = xdim * ydim
-        k1, k2, k3 = jax.random.split(jax.random.PRNGKey(noc + xdim), 3)
-        codes = jax.random.normal(k1, (noc, 128), dtype=jnp.float32)
-        xb = jax.random.normal(k2, (64, 128), dtype=jnp.float32)
-        xn = jax.random.normal(k3, (64, 128), dtype=jnp.float32)
-        if d_real is not None:
-            codes = codes.at[:, d_real:].set(0.0)
-            xb = xb.at[:, d_real:].set(0.0)
-            xn = xn.at[:, d_real:].set(0.0)
-        _, bmu = dist_argmin(xb, codes, tile_b=64, tile_n=128)
-        tn = tn_mult * xdim
-        c0, i0, v0 = som_fused_train_step(
-            codes, xb, bmu, xn, xdim, hexa, 0.05, 3.0,
-            gaussian=gaussian, tile_n=tn, factored=False)
-        c1, i1, v1 = som_fused_train_step(
-            codes, xb, bmu, xn, xdim, hexa, 0.05, 3.0,
-            gaussian=gaussian, tile_n=tn, factored=True, d_real=d_real)
-        np.testing.assert_allclose(np.asarray(c1), np.asarray(c0),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i0))
-        np.testing.assert_allclose(np.asarray(v1), np.asarray(v0),
-                                   rtol=1e-4, atol=1e-4)
-
-
-def test_fused_int8_winner_close_to_f32():
-    """The int8 winner contraction (opt-in int8_win, VERDICT r4 task 5):
-    codebook update is IDENTICAL to the f32 chunked kernel (quantization
-    touches only the next batch's winner search), and winners agree with
-    the f32 path except on near-ties within quantization noise."""
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
-    from som_lvq_pak_tpu.ops.pallas_som import som_fused_train_step
-
-    xdim, ydim = 16, 16
-    noc = xdim * ydim
-    # clustered data (like a trained map's regime): winner margins are
-    # meaningful, so quantization-noise flips are confined to true
-    # near-ties.  On pure random-gaussian points, inter-unit distance
-    # gaps concentrate near zero and ANY perturbation flips ~half the
-    # winners — that measures the data, not the kernel.
-    rng = np.random.default_rng(3)
-    centers = rng.normal(0, 4.0, size=(16, 64)).astype(np.float32)
-    cpts = (centers[rng.integers(0, 16, size=noc)]
-            + rng.normal(0, 1.0, size=(noc, 64))).astype(np.float32)
-    xpts = (centers[rng.integers(0, 16, size=256)]
-            + rng.normal(0, 1.0, size=(256, 64))).astype(np.float32)
-    npts = (centers[rng.integers(0, 16, size=256)]
-            + rng.normal(0, 1.0, size=(256, 64))).astype(np.float32)
-    codes = jnp.zeros((noc, 128), jnp.float32).at[:, :64].set(cpts)
-    xb = jnp.zeros((256, 128), jnp.float32).at[:, :64].set(xpts)
-    xn = jnp.zeros((256, 128), jnp.float32).at[:, :64].set(npts)
-    _, bmu = dist_argmin(xb, codes, tile_b=64, tile_n=128)
-    kw = dict(gaussian=True, tile_n=2 * xdim, factored=True, d_real=64,
-              batch_chunk=128)
-    c_f, i_f, _ = som_fused_train_step(
-        codes, xb, bmu, xn, xdim, True, 0.05, 3.0, **kw)
-    c_q, i_q, _ = som_fused_train_step(
-        codes, xb, bmu, xn, xdim, True, 0.05, 3.0, int8_win=True, **kw)
-    # update path untouched by the quantization
-    np.testing.assert_allclose(np.asarray(c_q), np.asarray(c_f),
-                               rtol=1e-6, atol=1e-6)
-    # global-scale int8 at this value range (max|.| ~ 16 over 64 dims)
-    # carries ~1 % distance noise, so same-cluster units with close
-    # distances swap; the contract is (a) most winners agree and (b)
-    # EVERY disagreement is a near-tie in exact distance — the picked
-    # unit is nearly as close as the f32 winner
-    agree = float(np.mean(np.asarray(i_q) == np.asarray(i_f)))
-    assert agree >= 0.60, agree
-    xn_np, c_np = np.asarray(xn), np.asarray(c_f)
-    for b in np.nonzero(np.asarray(i_q) != np.asarray(i_f))[0]:
-        df = np.sum((xn_np[b] - c_np[np.asarray(i_f)[b]]) ** 2)
-        dq = np.sum((xn_np[b] - c_np[np.asarray(i_q)[b]]) ** 2)
-        assert abs(dq - df) / max(df, 1e-9) < 0.05, (b, df, dq)
-
-
-def test_fused_trainer_quality_matches_unfused(ex_dat):
-    """SOMTrainer's fused pipeline (use_pallas=True -> interpret mode on
-    CPU) must learn to the same qerror level as the two-kernel path."""
-    codes = _rand_codes(ex_dat, xdim=8, ydim=6)
-    tr_ref = SOMTrainer(codes, batch_size=256, use_pallas=False, seed=5)
-    ref = tr_ref.fit(ex_dat, rlen=6000, alpha=0.05, radius=4.0)
-    q_ref = find_qerror(ref, ex_dat, mode="fast") / ex_dat.n
-
-    tr_f = SOMTrainer(codes, batch_size=256, use_pallas=True, seed=5)
-    fused = tr_f.fit(ex_dat, rlen=6000, alpha=0.05, radius=4.0)
-    q_f = find_qerror(fused, ex_dat, mode="fast") / ex_dat.n
-    assert np.isfinite(np.asarray(fused.points)).all()
-    # same batches, same schedule; the fused pipeline's winner search lags
-    # one batch behind the two-kernel path's, so anchor on quality
-    assert q_f < 1.1 * q_ref, (q_f, q_ref)
-
-
-def test_fused_trainer_bf16_resident(ex_dat):
-    """bf16-resident codebook on the fused path: finite, float32 out,
-    and learns to a quality close to the f32 run."""
-    codes = _rand_codes(ex_dat, xdim=8, ydim=6)
-    tr32 = SOMTrainer(codes, batch_size=256, use_pallas=True, seed=5)
-    out32 = tr32.fit(ex_dat, rlen=4000, alpha=0.05, radius=4.0)
-    q32 = find_qerror(out32, ex_dat, mode="fast") / ex_dat.n
-
-    tr16 = SOMTrainer(codes, batch_size=256, use_pallas=True, seed=5, bf16=True)
-    out16 = tr16.fit(ex_dat, rlen=4000, alpha=0.05, radius=4.0)
-    assert out16.points.dtype == np.float32
-    assert np.isfinite(out16.points).all()
-    q16 = find_qerror(out16, ex_dat, mode="fast") / ex_dat.n
-    assert q16 < 1.1 * q32, (q16, q32)
-
-
-def test_vmem_grouped_trainer_matches_stepwise(ex_dat):
-    """The VMEM-resident K-steps-per-dispatch path must produce exactly
-    the same codebook as the stepwise fused pipeline (same batches, same
-    math; covers group boundaries + next_first chaining with a final
-    partial group)."""
-    codes = _rand_codes(ex_dat, xdim=8, ydim=6)
-    # 40 batches: one full 32-group + one partial 8-group
-    kw = dict(batch_size=64, use_pallas=True, seed=9)
-    out_v = SOMTrainer(codes, vmem_steps=None, **kw).fit(
-        ex_dat, rlen=40 * 64, alpha=0.05, radius=4.0)
-    out_s = SOMTrainer(codes, vmem_steps=False, **kw).fit(
-        ex_dat, rlen=40 * 64, alpha=0.05, radius=4.0)
-    np.testing.assert_allclose(out_v.points, out_s.points,
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_fused_chunked_stagger_kernel_matches_factored():
-    """The batch-chunked (and staggered) large-B kernel must reproduce
-    the factored kernel: codes to float rounding, winner indices
-    exactly, val contract — across {chunked, stagger} combos,
-    dual-parity and multi-row tiles, gaussian and bubble.  Bubble is the
-    sharp case: its radius compare is exact-f32 grid algebra (rowdiff^2
-    * 0.75), so inclusion at exact-boundary distances cannot depend on
-    which kernel (or compiler rewrite) computed it."""
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
-    from som_lvq_pak_tpu.ops.pallas_som import som_fused_train_step
-
-    for xdim, ydim, hexa, gaussian, d_real, tn_mult, bc, stag in (
-        (16, 8, True, True, None, 2, 128, False),   # chunked only
-        (16, 8, True, True, None, 2, 256, True),    # chunk == B + stagger
-        (16, 8, True, True, 64, 1, 128, True),      # dual-parity stagger
-        (16, 12, False, True, 64, 2, 128, True),    # rect
-        (16, 8, True, False, None, 1, 128, True),   # bubble dual-parity
-        (16, 8, True, False, None, 2, 128, False),  # bubble multi-row
-    ):
-        noc = xdim * ydim
-        k1, k2, k3 = jax.random.split(jax.random.PRNGKey(noc + xdim + bc), 3)
-        codes = jax.random.normal(k1, (noc, 128), dtype=jnp.float32)
-        xb = jax.random.normal(k2, (256, 128), dtype=jnp.float32)
-        xn = jax.random.normal(k3, (256, 128), dtype=jnp.float32)
-        if d_real is not None:
-            codes = codes.at[:, d_real:].set(0.0)
-            xb = xb.at[:, d_real:].set(0.0)
-            xn = xn.at[:, d_real:].set(0.0)
-        _, bmu = dist_argmin(xb, codes, tile_b=64, tile_n=128)
-        tn = tn_mult * xdim
-        c0, i0, v0 = som_fused_train_step(
-            codes, xb, bmu, xn, xdim, hexa, 0.05, 3.0,
-            gaussian=gaussian, tile_n=tn, factored=True, d_real=d_real)
-        c1, i1, v1 = som_fused_train_step(
-            codes, xb, bmu, xn, xdim, hexa, 0.05, 3.0,
-            gaussian=gaussian, tile_n=tn, factored=True, d_real=d_real,
-            batch_chunk=bc, stagger=stag)
-        np.testing.assert_allclose(np.asarray(c1), np.asarray(c0),
-                                   rtol=1e-5, atol=1e-5)
-        # a handful of winner flips between exactly-tied scores can
-        # arise from the chunked accumulation's different f32 sum order
-        agree = (np.asarray(i1) == np.asarray(i0)).mean()
-        assert agree >= 0.995, (agree, xdim, ydim, gaussian, bc, stag)
-        np.testing.assert_allclose(np.asarray(v1), np.asarray(v0),
-                                   rtol=1e-4, atol=1e-4)
-
-
-def test_blend_winner_kernel_matches_oracle():
-    """som_blend_winner (pass B of the mixed-mesh step): guarded blend +
-    next-batch winner in one pass == the two-step oracle, including the
-    d_real winner slice and row-padded val contract."""
-    from som_lvq_pak_tpu.ops.pallas_som import som_blend_winner
-
-    k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(2), 4)
-    n, D, B = 128, 128, 192
-    codes = jax.random.normal(k1, (n, D))
-    acc = jax.random.normal(k2, (n, D)) * 0.1
-    wsum = jax.random.uniform(k3, (n, 1)) * 2
-    xn = jax.random.normal(k4, (B, D))
-    for d_real in (None, 64):
-        cs, xs = codes, xn
-        if d_real is not None:
-            cs = cs.at[:, d_real:].set(0.0)
-            xs = xs.at[:, d_real:].set(0.0)
-        c2, val, idx = som_blend_winner(cs, acc, wsum, xs, tile_n=32,
-                                        d_real=d_real)
-        safe = jnp.maximum(wsum, 1e-30)
-        ref = cs + jnp.minimum(wsum, 1.0) * (acc / safe - cs)
-        if d_real is not None:
-            # blended padded lanes carry acc mass; the winner ignores
-            # them via the d_real slice — compare on real lanes
-            d = (jnp.sum(ref[:, :d_real] ** 2, axis=1)[None, :]
-                 - 2 * xs[:, :d_real] @ ref[:, :d_real].T)
-        else:
-            d = jnp.sum(ref * ref, axis=1)[None, :] - 2 * xs @ ref.T
-        iref = jnp.argmin(d, axis=1)
-        np.testing.assert_allclose(np.asarray(c2), np.asarray(ref),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(idx), np.asarray(iref))
-        np.testing.assert_allclose(np.asarray(val),
-                                   np.asarray(jnp.min(d, axis=1)),
-                                   rtol=1e-4, atol=1e-4)
-
-
-def test_fused_chunked_batch_bf16_close():
-    """batch_bf16 (the B=8192 VMEM regime) tracks the f32 chunked kernel
-    within bf16 rounding and keeps winner agreement high."""
-    from som_lvq_pak_tpu.ops.pallas_distance import dist_argmin
-    from som_lvq_pak_tpu.ops.pallas_som import som_fused_train_step
-
-    xdim, ydim = 16, 8
-    noc = xdim * ydim
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(17), 3)
-    codes = jax.random.normal(k1, (noc, 128), dtype=jnp.float32)
-    xb = jax.random.normal(k2, (256, 128), dtype=jnp.float32)
-    xn = jax.random.normal(k3, (256, 128), dtype=jnp.float32)
-    _, bmu = dist_argmin(xb, codes, tile_b=64, tile_n=128)
-    c0, i0, _ = som_fused_train_step(
-        codes, xb, bmu, xn, xdim, True, 0.05, 3.0,
-        gaussian=True, tile_n=xdim, factored=True, d_real=64,
-        batch_chunk=128)
-    c1, i1, _ = som_fused_train_step(
-        codes, xb, bmu, xn, xdim, True, 0.05, 3.0,
-        gaussian=True, tile_n=xdim, factored=True, d_real=64,
-        batch_chunk=128, wxa_bf16=True, batch_bf16=True)
-    # bf16 batches/x-pattern: ~3 decimal digits on the update
-    np.testing.assert_allclose(np.asarray(c1), np.asarray(c0),
-                               rtol=2e-2, atol=2e-2)
-    # bf16 scores flip more near-ties on this random workload (real-data
-    # winner gaps are wider); agreement floor is a sanity bound
-    agree = (np.asarray(i1) == np.asarray(i0)).mean()
-    assert agree >= 0.9, agree
-    assert np.isfinite(np.asarray(c1)).all()
